@@ -1,10 +1,10 @@
-"""jasper_tpu — a TPU-native genome-assembly polishing framework.
+"""jasper_tpu — a JAX genome-assembly polishing framework.
 
 A from-scratch reimplementation of the capabilities of JASPER
 (Guo, Salzberg, Zimin, PLoS Comput Biol 2023; reference repo alguoo314/JASPER)
-designed for TPUs with JAX/XLA/Pallas:
+built on JAX/XLA for an accelerator (an NVIDIA H100):
 
-  * k-mer counting of accurate reads into an HBM-resident open-addressing
+  * k-mer counting of accurate reads into a device-resident open-addressing
     count table (replaces Jellyfish's lock-free CAS hash,
     cf. reference jellyfish-2.3.0 include/jellyfish/large_hash_array.hpp),
   * batched, vectorized k-mer count lookups (replaces the per-call SWIG
@@ -14,7 +14,7 @@ designed for TPUs with JAX/XLA/Pallas:
     reference polishing semantics (cf. reference src/jasper.py),
   * a pipeline driver compatible with the reference CLI
     (cf. reference src/jasper.sh),
-  * multi-chip scaling via jax.sharding meshes: data-parallel window
+  * multi-device scaling via jax.sharding meshes: data-parallel window
     scanning with a replicated or hash-sharded count table.
 """
 

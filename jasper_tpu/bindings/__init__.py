@@ -2,7 +2,7 @@
 
 Importing this package registers ``dna_jellyfish`` in ``sys.modules`` so
 existing reference-user code (``import dna_jellyfish as jf``) works unchanged
-against the TPU framework:
+against this framework:
 
     import jasper_tpu.bindings  # noqa: F401
     import dna_jellyfish as jf

@@ -4,7 +4,7 @@
 sub_commands/stats_main.cc:33-46): Unique / Distinct / Total / Max over
 counts within [low, high]. `table_mem_bytes` / `table_size_for_mem` answer
 `jellyfish mem`'s two questions (sub_commands/mem_main.cc:41-53) for the
-TPU table layout: memory is n_buckets * 128 uint32 rows (full key + count
+device table layout: memory is n_buckets * 128 uint32 rows (full key + count
 per slot; see jasper_tpu.table.kmer_table), not the reference's bit-packed
 quotiented layout — so the numbers are for THIS framework's table.
 """

@@ -1,7 +1,7 @@
 """ctypes bridge to the native FASTA/FASTQ parser (native/jt_fastx.cc).
 
 Replaces the Python line-by-line read loop in the host ingest path with the
-C++ state-machine parser (the TPU build's analog of the reference's native
+C++ state-machine parser (this framework's analog of the reference's native
 mer_overlap_sequence_parser, jellyfish mer_overlap_sequence_parser.hpp).
 Falls back to None when the shared library hasn't been built; callers
 (jasper_tpu.io.fastx.stream_codes) degrade to the Python parser.

@@ -1,10 +1,10 @@
 """Table hash over k-mer key words (murmur3-32 style, xp-parameterized).
 
-This is the *internal* hash of the in-HBM count table; it is independent of
+This is the *internal* hash of the device count table; it is independent of
 the GF(2) matrix hash the reference uses for .jf file ordering (that lives in
 jasper_tpu.ops.gf2 and is only needed for .jf interchange). A multiplicative
-mix is a handful of VPU ops per key — far cheaper on TPU than the reference's
-column-XOR loop (jellyfish rectangular_binary_matrix.hpp:224-252) and equally
+mix is a handful of elementwise integer ops per key — cheaper to vectorize
+than the reference's column-XOR loop (jellyfish rectangular_binary_matrix.hpp:224-252) and equally
 uniform for open addressing.
 
 Implemented identically for numpy and jax.numpy; all arithmetic is uint32
@@ -62,8 +62,7 @@ def home_of(xp, h, n_buckets: int, owner_bits: int = 0):
     on) — and, unlike the earlier top-bit shift, ``n_buckets`` need NOT be a
     power of two: tables size to ceil(n/load) instead of the next power of
     two (which left the effective load anywhere in [load/2, load] and up to
-    2x the HBM — the r4 8.59 GB scan table at 278 M records was really a
-    0.52-load power-of-two rounding of a 0.6 target).
+    2x the device memory).
 
     The multiply-high runs in uint32 (16-bit split) because jax disables
     x64 by default; ``n_buckets`` is a static Python int.

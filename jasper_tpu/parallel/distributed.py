@@ -1,12 +1,12 @@
 """Multi-host deployment: jax.distributed init + host work partitioning.
 
 The reference never leaves one node (its "cluster" is xargs -P on one box,
-reference src/jasper.sh:212). The TPU deployment runs one process per host
-of a pod slice; this module is the thin layer that (a) initializes the JAX
-distributed runtime so jax.devices() spans the slice and the meshes built in
-parallel.scanner ride ICI/DCN, and (b) deals hosts their share of polish
-batches, with outputs joined on the shared filesystem by process 0 (the
-TPU analog of the reference's per-batch files + cat/awk join, sh:218-232).
+reference src/jasper.sh:212). A multi-host deployment runs one process per
+host; this module is the thin layer that (a) initializes the JAX
+distributed runtime so jax.devices() spans the hosts, and (b) deals hosts
+their share of polish batches, with outputs joined on the shared filesystem
+by process 0 (the analog of the reference's per-batch files + cat/awk join,
+sh:218-232). Each host scans on its own local devices.
 
 Env contract (standard JAX names, or flags on run_pipeline):
   JASPER_TPU_COORDINATOR   host:port of process 0 (enables multi-host)

@@ -1,19 +1,23 @@
-"""Production multi-chip scanners + mesh/scanner selection policy.
+"""Production multi-device scanners + mesh/scanner selection policy.
 
 The reference's whole P5 deployment is xargs -P processes sharing one
-mmapped .jf (reference src/jasper.sh:206-215). The TPU deployment has two
-regimes, selected by select_scanner():
+mmapped .jf (reference src/jasper.sh:206-215). Here select_scanner()
+chooses among three regimes:
 
-  * table fits one chip's HBM -> replicated table, data-parallel tiles
-    (polish.device_engine.DeviceScanner over a ("data",) mesh);
-  * table exceeds one chip -> hash-prefix-sharded table, window tiles
+  * table fits one device's budget -> replicated table, data-parallel tiles
+    (polish.device_engine.DeviceScanner, over a ("data",) mesh when more
+    than one device is asked for);
+  * table exceeds one device -> hash-prefix-sharded table, window tiles
     data-parallel on the "data" axis, lookups routed all-to-all on the
-    "table" axis (ShardedDeviceScanner below, over sharded_scan_fn).
+    "table" axis (ShardedDeviceScanner below, over sharded_scan_fn);
+  * table exceeds every device's share even at full sharding (one device:
+    any table past its budget) -> bucket-range partitions streamed through
+    one device (PartitionedDeviceScanner).
 
-Both produce the same ContigScan arrays consumed by DevicePolishEngine, so
+All produce the same ContigScan arrays consumed by DevicePolishEngine, so
 the byte-exact repair replay is identical in every regime. The driver
 (pipeline.driver.run_pipeline) and the dryrun entry (__graft_entry__)
-call this same policy.
+call this same policy. Device budgets come from jasper_tpu.utils.budgets.
 """
 
 from __future__ import annotations
@@ -25,13 +29,14 @@ from jasper_tpu.parallel.sharded_table import (
     make_mesh,
     sharded_scan_fn,
 )
+from jasper_tpu.utils import budgets
 
-# conservative per-chip HBM budget for a replicated table (v5e has 16 GB;
-# the scan program stores the gather operand TILED at ~2x the logical
-# bytes — see tile_for_table — so the replicated ceiling is ~5.5 GB
-# logical; bigger tables go hash-sharded (multi-chip) or bucket-range
-# partitioned (single chip))
-HBM_TABLE_BUDGET = int(5.5 * (1 << 30))
+# scan-program working set of scan_window_packed at k=37 on top of the
+# resident table, from compiled.memory_analysis() on an H100 80GB HBM3
+# (PERF.md, PR 1 findings): 41.2 B per scanned lane plus 68,756 B fixed,
+# rounded up here
+SCAN_LANE_BYTES = 42
+SCAN_FIXED_BYTES = 1 << 20
 
 
 class ShardedDeviceScanner:
@@ -274,17 +279,16 @@ class PartitionedDeviceScanner:
         return ContigScan(counts, valid, unsafe)
 
 
-def tile_for_table(table_bytes: int, tile: int, hbm: int = 15 << 30) -> int:
-    """Largest power-of-two scan tile that compiles alongside a resident
-    table of table_bytes.
-
-    Program-HBM model measured from the compiler's own allocation tables
-    (v5e, 2026-08-21): the scan stores the [R, 64] gather operand TILED
-    ({1,0:T(8,128)}: minor dim padded 64 -> 128 = ~2x the logical bytes)
-    plus ~2.7 KB per lane for the probe loop, plus ~1 GB of transients.
-    The 100 Mbp race's dense 4.85 GB table at 2M-lane tiles summed to
-    15.1 G of 15.75 G — a hairline fit; this cap keeps a real margin."""
-    budget_lanes = max(1 << 18, (hbm - 2 * table_bytes - (1 << 30)) // 2700)
+def tile_for_table(table_bytes: int, tile: int,
+                   program_bytes: int | None = None) -> int:
+    """Largest power-of-two scan tile (at most ``tile``) whose scan program
+    fits beside a resident table of table_bytes: the table plus the
+    working set measured from the compiled scan (SCAN_LANE_BYTES per lane
+    on top of SCAN_FIXED_BYTES) within the scan program's budget."""
+    if program_bytes is None:
+        program_bytes = budgets.scan_program_bytes()
+    budget_lanes = max(1 << 18, (program_bytes - table_bytes
+                                 - SCAN_FIXED_BYTES) // SCAN_LANE_BYTES)
     t = 1 << 18
     while t * 2 <= min(tile, budget_lanes):
         t *= 2
@@ -308,9 +312,11 @@ def local_data_mesh(num_devices: int | None = None, devices=None):
 
 
 def mesh_for_table(table_bytes: int, num_devices: int,
-                   hbm_budget: int = HBM_TABLE_BUDGET):
+                   hbm_budget: int | None = None):
     """Pick (n_table, n_data): smallest power-of-two table axis whose shard
-    fits the per-chip budget; remaining devices go data-parallel."""
+    fits the per-device budget; remaining devices go data-parallel."""
+    if hbm_budget is None:
+        hbm_budget = budgets.hbm_table_budget()
     n_table = 1
     while n_table < num_devices and table_bytes // n_table > hbm_budget:
         n_table *= 2
@@ -319,7 +325,7 @@ def mesh_for_table(table_bytes: int, num_devices: int,
 
 
 def select_scanner(host_table, k: int, num_devices: int | None = None,
-                   hbm_budget: int = HBM_TABLE_BUDGET, tile: int = 1 << 22,
+                   hbm_budget: int | None = None, tile: int = 1 << 22,
                    devices=None, device_tab=None):
     """The driver's scanner policy. Returns a scanner object with
     .prepare(seq, thre) -> ContigScan.
@@ -334,9 +340,8 @@ def select_scanner(host_table, k: int, num_devices: int | None = None,
 
     import os
 
-    env_budget = os.environ.get("JASPER_TPU_HBM_BUDGET")
-    if env_budget:
-        hbm_budget = int(env_budget)
+    if hbm_budget is None:
+        hbm_budget = budgets.hbm_table_budget()
     env_tile = os.environ.get("JASPER_TPU_SCAN_TILE")
     if env_tile:
         tile = int(env_tile)
@@ -382,10 +387,9 @@ def select_scanner(host_table, k: int, num_devices: int | None = None,
 def push_table_sliced(tab_np, slice_bytes: int = 512 << 20):
     """Host table -> device, in donated dynamic_update_slice chunks.
 
-    jnp.asarray of a multi-GB table makes XLA materialize a second tiled
-    copy on device (measured: an 8.59 GB table allocated 17.2 GB and OOMed
-    the 16 GB chip at 100 Mbp / 278 M records). Uploading row slices into a
-    donated device buffer keeps the peak at table + one slice."""
+    Uploading row slices into a donated device buffer bounds the transfer's
+    peak at table + one slice, whatever layout copy the backend would make
+    of a whole-table jnp.asarray (unmeasured on the H100)."""
     import functools
 
     import jax

@@ -1,8 +1,8 @@
 """Multi-chip count table: hash-prefix sharding + all-to-all query routing.
 
 The reference scales by processes sharing one mmapped file through the OS
-page cache (reference src/jasper.sh:209-212) — single node only. The TPU
-design (SURVEY §2.F P5, BASELINE north star):
+page cache (reference src/jasper.sh:209-212) — single node only. The
+multi-device design (SURVEY §2.F P5):
 
   * mesh axis "table": the count table is sharded by the TOP bits of the
     table hash (owner = mix32(key) >> (32 - log2 D)); each device holds an
@@ -12,13 +12,14 @@ design (SURVEY §2.F P5, BASELINE north star):
     data-parallel; table shards are replicated across the data axis.
   * lookup: each device buckets its queries by owner with a static capacity
     (2x the uniform share — overflow is counted and returned, not silent),
-    exchanges buckets with jax.lax.all_to_all over ICI, probes locally, and
-    routes results back.
-  * when the table fits one chip's HBM, use replicated mode instead
+    exchanges buckets with jax.lax.all_to_all (NCCL over NVLink between
+    H100s), probes locally, and routes results back.
+  * when the table fits one device's budget, use replicated mode instead
     (replicated_lookup_fn): no collectives on the lookup path at all.
 
-Everything is shard_map over a jax.sharding.Mesh, so the same code runs on
-a v5e pod slice or on the 8-device virtual CPU mesh used in tests.
+Everything is shard_map over a jax.sharding.Mesh whose shape follows the
+algorithm (make_mesh), so the same code runs on a multi-GPU host or on the
+8-device virtual CPU mesh used in tests.
 """
 
 from __future__ import annotations
@@ -403,7 +404,7 @@ def sharded_scan_fn(mesh: Mesh, k: int, codes_per_device: int, divisor: int = 50
 
 def replicated_lookup_fn(mesh: Mesh):
     """Data-parallel lookup against a replicated table: queries sharded over
-    all devices, table everywhere. The default when the DB fits HBM."""
+    all devices, table everywhere. The default when the DB fits one device."""
 
     def per_device(tab, keys, valid):
         return lookup_kmers(tab, keys, valid)

@@ -14,7 +14,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="jasper-tpu",
-        description="TPU-native k-mer assembly polisher (JASPER-compatible)",
+        description="JAX k-mer assembly polisher (JASPER-compatible)",
     )
     p.add_argument("-b", "--batch", type=int, default=0,
                    help="Desired batch size for the query (default from threads and assembly size)")
@@ -43,9 +43,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    from jasper_tpu.utils.jaxenv import honor_env_platform
-
-    honor_env_platform()
     args = build_parser().parse_args(argv)
     from jasper_tpu.pipeline.driver import PipelineError, run_pipeline
 

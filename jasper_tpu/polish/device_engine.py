@@ -63,10 +63,11 @@ class ContigScan:
 class DeviceScanner:
     """Runs the device pass and packages flag arrays.
 
-    With more than one device visible, tiles scan data-parallel across all
-    of them (table replicated) via a ("data",) mesh — the production
-    multi-chip polish path (reference P5: xargs -P process fan-out,
-    src/jasper.sh:209-212)."""
+    With a ("data",) mesh, tiles scan data-parallel across its devices
+    (table replicated) — the multi-device polish path (reference P5:
+    xargs -P process fan-out, src/jasper.sh:209-212). Without one, the
+    scan runs on one device; parallel.scanner.select_scanner builds the
+    mesh when more than one device is asked for."""
 
     def __init__(self, tab, k: int, divisor: int = 50, tile: int = 1 << 22,
                  mesh=None):
@@ -74,16 +75,6 @@ class DeviceScanner:
         self.k = int(k)
         self.divisor = divisor
         self.tile = tile
-        if mesh is None:
-            import jax
-
-            # local devices only: under multi-host each process scans its
-            # own batches (a global default mesh would create arrays this
-            # process cannot read back)
-            if len(jax.local_devices()) > 1:
-                from jax.sharding import Mesh
-
-                mesh = Mesh(np.array(jax.local_devices()), ("data",))
         self.mesh = mesh
 
     def prepare(self, seq: str, solid_thre: int) -> ContigScan:

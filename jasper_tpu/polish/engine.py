@@ -9,7 +9,7 @@ round() banker's rounding, candidate trial orders ('ACTG' for substitutions,
 the quirky boundary behaviors (negative-index slices, A-padded short-string
 queries — see jasper_tpu.polish.semantics).
 
-Counts are served by a CountSource; the TPU acceleration strategy keeps this
+Counts are served by a CountSource; the device acceleration strategy keeps this
 control flow on the host while the bulk per-window count arrays are produced
 on-device in one batched lookup (see jasper_tpu.polish.window), so the
 engine's count_at() fast path hits a precomputed vector and only novel

@@ -101,9 +101,6 @@ def main(argv=None) -> int:
     import argparse
     import sys
 
-    from jasper_tpu.utils.jaxenv import honor_env_platform
-
-    honor_env_platform()
     parser = argparse.ArgumentParser()
     parser.add_argument("--db", default=None,
                         help="The path to the .jf database file.")

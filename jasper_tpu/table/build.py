@@ -1,5 +1,5 @@
 """Scatter-light "waterfall" construction of the bucketed table from a
-sorted run — the final stage of the TPU counting pipeline.
+sorted run — the final stage of the device counting pipeline.
 
 Replaces jellyfish's claim-loop build (reference
 jf:include/jellyfish/large_hash_array.hpp:509-597: per-key CAS probe chains)
@@ -17,8 +17,7 @@ flooded past it, in which case it takes the next free slot (the
 insert's layout: every key lies in [home, home+PAD_BUCKETS] and the chain of
 buckets from its home is all-full, so lookup_kmers' stop-at-first-empty
 invariant holds. One bounded scatter with sorted indices materializes the
-table; everything else is cumsum/compare — the ops the TPU sorts through at
-bandwidth speed (tools/layout_sweep.py: scatter 146ms/M rows vs sort 2-6ms).
+table; everything else is cumsum/compare.
 """
 
 from __future__ import annotations
@@ -65,10 +64,8 @@ def build_from_run(h, keys, counts, n_buckets: int, owner_bits: int = 0):
     failed = active & ((bucket - home > PAD_BUCKETS) | (slot >= total_slots))
     ok = active & ~failed
 
-    # scatter word-by-word into a flat 1-D array: a [total_slots, sw] 2-D
-    # scatter output would be tile-padded to 128 lanes on TPU (sw=4 -> 32x
-    # HBM inflation, measured as a 34 GB OOM on a 67M-slot build).
-    # Word-major rows (kmer_table layout): slot s's word j lives at
+    # scatter word-by-word into a flat 1-D array (no [total_slots, sw] 2-D
+    # scatter output for the compiler to lay out). Word-major rows (kmer_table layout): slot s's word j lives at
     # bucket * 64 + j * S + s
     n_rows = n_buckets + PAD_BUCKETS
     assert n_rows * ROW_U32 < 1 << 31, "table exceeds int32 flat addressing"
@@ -92,7 +89,7 @@ def build_table(run, k: int, load_factor: float | None = None,
     """Host driver: size the table for the run and build it, growing on the
     (rare) overflow beyond PAD_BUCKETS. run = (h, keys, counts, n_active)
     from RunAccumulator.finish(). Returns the device table.
-    load_factor None -> kmer_table.adaptive_load (fast below 6 GB)."""
+    load_factor None -> kmer_table.adaptive_load."""
     h, keys, counts, n_active = run
     if load_factor is None:
         from jasper_tpu.table.kmer_table import adaptive_load

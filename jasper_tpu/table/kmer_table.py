@@ -1,10 +1,11 @@
-"""HBM-resident bucketed k-mer count table (device side).
+"""Device-resident bucketed k-mer count table.
 
-TPU-native replacement for the reference's lock-free CAS hash
-(jellyfish large_hash_array.hpp / hash_counter.hpp). The layout is chosen
-from measured v5e gather behavior: XLA row-gather cost is per-index
-(~12ns/row) almost independent of row width up to 256B, so the table stores
-16 slots per physical row ("bucket") and one gather resolves a lookup:
+Batched replacement for the reference's lock-free CAS hash
+(jellyfish large_hash_array.hpp / hash_counter.hpp). The table stores up to
+21 slots per physical 256 B row ("bucket"), so one row gather resolves a
+lookup. That rests on a row gather costing about the same at 256 B as at
+16 B; the probe's cost on the H100, where random reads are charged by the
+32 B sector, is not measured yet (PERF.md):
 
   tab: uint32 [n_buckets + PAD_BUCKETS, 64]
        row = bucket of SLOTS slots x SLOT_WORDS u32, laid out WORD-MAJOR:
@@ -15,10 +16,8 @@ from measured v5e gather behavior: XLA row-gather cost is per-index
        row words past SLOTS * SLOT_WORDS are spare (always zero). k <= 32
        packs 21 slots/bucket (12 B/slot), k <= 48 16 slots (16 B/slot).
        Word-major (struct-of-arrays within the row) keeps every probe read
-       a CONTIGUOUS column slice of the gathered [B, 64] rows — the
-       interleaved form needed a [B, S, sw] reshape whose minor dim gets
-       tile-padded on TPU (measured: the 4.19M-lane probe against a 4.85 GB
-       table failed to compile at 16.6 GB of program HBM).
+       a CONTIGUOUS column slice of the gathered [B, 64] rows, with no
+       [B, S, sw] reshape for the compiler to lay out.
 
 Probing is bucket-granular linear probing WITHOUT wraparound: home bucket
 b = mulhi(mix32(key), n_buckets) (ops.hashing.home_of — monotone in the
@@ -29,10 +28,9 @@ a stored key's chain [home..its bucket] is all-full, so a lookup is
 gather answers hits AND misses.
 
 Batched ops:
-  * lookup: one full-batch gather + vectorized 16-way compare; the rare
+  * lookup: one full-batch gather + vectorized slot compare; the rare
     full-bucket-no-match lanes (~1-2% at load 0.6) continue via rounds that
-    compact pending lanes with a cheap stable argsort (sort is ~10x cheaper
-    than gather on this hardware) and gather only those.
+    compact pending lanes with a stable argsort and gather only those.
   * insert: pre-aggregates duplicate keys with a lexicographic sort +
     segment-sum (the vectorized analog of jellyfish's per-thread local
     counting), then claim rounds: first-empty-slot scatter-min claims, the
@@ -103,24 +101,19 @@ def slots_for(n_keys: int, load_factor: float = 0.7) -> int:
     return max(64, int(math.ceil(n_keys / load_factor)))
 
 
-FAST_LOAD = 0.55   # probe chains short: ~30 M lookups/s/chip measured
-DENSE_LOAD = 0.7   # chromosome-scale footprint: ~20 M lookups/s/chip
+FAST_LOAD = 0.55   # shorter probe chains
+DENSE_LOAD = 0.7   # smaller footprint for tables near the memory budget
 
 
 def adaptive_load(n_records: int, k: int) -> float:
     """Load-factor policy: FAST_LOAD while the table stays under
-    JT_TABLE_FAST_BYTES (default 5 GB), DENSE_LOAD beyond. Measured load
-    curve (v5e, k=37, 1M-lane tiles, 2026-08-21): 0.55 ~30 M lookups/s,
-    0.7 ~20 M, 0.8 ~9 M — probe-chain physics; density only pays when HBM
-    is the binding constraint. The threshold prices the scan program's
-    TILED table layout: XLA stores the [R, 64] gather operand as
-    {1,0:T(8,128)} — minor dim padded 64 -> 128, i.e. ~2x the logical
-    bytes (the 6.17 GB fast-load table at 278 M records showed up as
-    11.49 G in the compiler's allocation table and OOMed the scan), so
-    5 GB logical ~= 10 GB in-program is the safe ceiling on a 16 GB chip."""
-    import os
+    utils.budgets.table_fast_bytes() (a share of the device memory limit;
+    JT_TABLE_FAST_BYTES overrides), DENSE_LOAD beyond. Denser tables have
+    longer probe chains, so density only pays when device memory binds.
+    The lookup rate at each load is not measured on the H100 yet."""
+    from jasper_tpu.utils.budgets import table_fast_bytes
 
-    fast_bytes = int(os.environ.get("JT_TABLE_FAST_BYTES", str(5 << 30)))
+    fast_bytes = table_fast_bytes()
     W = words_per_kmer(k)
     slots = ROW_U32 // slot_words_for(W)
     rows = -(-slots_for(max(n_records, 1), FAST_LOAD) // slots) + PAD_BUCKETS
@@ -201,11 +194,12 @@ def insert_kmers(tab, keys, counts, active, max_rounds: int = 512,
     profiling. owner_bits: hash bits consumed by shard routing before the
     home bits (parallel.sharded_table).
 
-    NOTE: for bulk counting, prefer the scatter-free sort path
-    (jasper_tpu.count.sorted_runs + jasper_tpu.table.build) — measured ~20x
-    faster on TPU (tools/layout_sweep.py: scatter is ~25x slower than
-    gather/sort). This claim-round insert remains for incremental adds
-    (HashCounter bindings, --if updates) and small batches.
+    NOTE: bulk counting takes the scatter-free sort path
+    (jasper_tpu.count.sorted_runs + jasper_tpu.table.build); this
+    claim-round insert serves incremental adds (HashCounter bindings,
+    --if updates) and small batches. Which of the two is faster on the
+    H100 is not measured yet (tools/layout_sweep.py measures the
+    primitives).
     """
     n_buckets, W, sw, slots = _layout(tab, keys)
     B = keys.shape[0]
@@ -330,12 +324,11 @@ def lookup_kmers(tab, keys, valid, max_rounds: int | None = None,
     pending = valid & ~hit & ~has_empty
 
     # -- continuation rounds for full-bucket-no-match lanes ----------------
-    # One while loop (each extra table-capturing control-flow construct
-    # costs another full table copy of program HBM on this compiler —
-    # a fancier compact-once design needed 3 copies and stopped compiling
-    # at chromosome-scale tables); rounds compact pending lanes with a
-    # stable argsort and gather only those. Probe-chain cost at high load
-    # is instead managed by the adaptive load factor (adaptive_load).
+    # One while loop that captures the table (each further control-flow
+    # construct capturing it may cost the compiler another table-sized
+    # buffer); rounds compact pending lanes with a stable argsort and
+    # gather only those. Probe-chain cost at high load is managed by the
+    # adaptive load factor (adaptive_load).
     C = min(B, max(512, B // 16))
     if max_rounds is None:
         max_rounds = -(-B // C) * (PAD_BUCKETS + 2)
@@ -377,9 +370,8 @@ def table_histogram(tab, max_count: int, k: int | None = None, W: int | None = N
     """count-frequency histogram over occupied slots (mirrors jellyfish
     histo's bucketing, sub_commands/histo_main.cc).
 
-    The count lane is read with a 1-D strided slice — a 2-D
-    reshape(-1, sw) materializes a [slots, sw] array whose minor dim gets
-    tile-padded to 128 on TPU (observed as a 68 GB OOM at 134M slots)."""
+    Word-major rows keep the counts one contiguous column block, read
+    without a [slots, sw] reshape."""
     if W is None:
         W = words_per_kmer(k)
     sw = slot_words_for(W)

@@ -210,8 +210,8 @@ void jt_jf_sort_pack(const uint32_t* keys, const uint64_t* counts,
 // distinct records in (h, key) order. Returns the output record count.
 //
 // Rationale: merging all levels on DEVICE doubles peak memory (concat+sort
-// of the full record set — ~16 GB transient at 280 M records, past a 16 GB
-// chip); per-level pulls + this host merge bound device memory at the
+// of the full record set); per-level pulls + this host merge bound device
+// memory at the
 // largest single level. Reference analog: jellyfish's k-way heap merge of
 // sorted .jf files, jf:jellyfish/merge_files.cc:45-101.
 extern "C" int64_t jt_merge_runs_multi(

@@ -465,7 +465,7 @@ def test_partitioned_valve_eviction_matches(tmp_path, monkeypatch):
     _, k1, c1 = counter.count_reads_to_host([str(fq)], k, chunk_len=1024)
     logs = []
     monkeypatch.setenv("JT_COUNT_PARTITIONS", "2")
-    monkeypatch.setattr(counter, "PARTITION_RESIDENT_BYTES", 1024 * 16)
+    monkeypatch.setenv("JT_PARTITION_RESIDENT_BYTES", str(1024 * 16))
     _, k2, c2 = counter.count_reads_to_host([str(fq)], k, chunk_len=1024,
                                             tlog=logs.append)
     assert any("ladder eviction" in l for l in logs), logs

@@ -317,3 +317,54 @@ def test_qv_matches_bc_reference_math():
             want = "Inf"
         got = qv_from_tallies(err, total, k)
         assert got == want, (err, total, k, got, want)
+
+
+def test_one_device_scanner_uses_one_device():
+    """select_scanner(num_devices=1) on the 8-device CPU platform scans on
+    one device: no mesh, and the scan's outputs live on a single device."""
+    import jax
+
+    from jasper_tpu.parallel.scanner import select_scanner
+    from jasper_tpu.polish.device_engine import DeviceScanner
+    from jasper_tpu.table import HostKmerTable
+
+    assert len(jax.local_devices()) > 1
+    rng = np.random.default_rng(5)
+    genome = G.random_genome(rng, 3000)
+    k = 17
+    host = HostKmerTable.empty(k, 8192)
+    from jasper_tpu.ops.codes import encode
+    from jasper_tpu.ops.kmer import canonical_windows
+
+    keys, valid = canonical_windows(np, encode(genome), k)
+    host.insert_np(keys[valid], np.ones(int(valid.sum()), np.uint32))
+    s = select_scanner(host, k, num_devices=1, tile=1 << 10)
+    assert isinstance(s, DeviceScanner) and s.mesh is None
+    assert DeviceScanner(s.tab, k).mesh is None
+    assert len(s.tab.devices()) == 1
+    arrays = s.prepare(genome, solid_thre=1)
+    np.testing.assert_array_equal(arrays.counts,
+                                  host.query_codes(encode(genome)))
+
+
+@pytest.mark.parametrize("k", [25, 37])
+def test_host_histogram_reads_word_major_counts(k):
+    """_host_histogram (the -j reuse path) == the histogram of items()."""
+    from jasper_tpu.count.histogram import histogram_rows_from_counts
+    from jasper_tpu.ops.kmer import words_per_kmer
+    from jasper_tpu.pipeline.driver import _host_histogram
+    from jasper_tpu.table import HostKmerTable
+
+    rng = np.random.default_rng(k)
+    W = words_per_kmer(k)
+    assert W == (2 if k == 25 else 3)
+    host = HostKmerTable.empty(k, 4096)
+    keys = rng.integers(0, 2**32, size=(2500, W), dtype=np.uint64).astype(
+        np.uint32)
+    keys[:, W - 1] &= (1 << (2 * k - 32 * (W - 1))) - 1
+    counts = rng.integers(1, 40, size=len(keys)).astype(np.uint32)
+    counts[:5] = 20000  # past the histogram's high bucket
+    host.insert_np(keys, counts)
+    _, item_counts = host.items()
+    assert len(item_counts) == len(np.unique(keys, axis=0))
+    assert _host_histogram(host) == histogram_rows_from_counts(item_counts)

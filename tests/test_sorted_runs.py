@@ -1,5 +1,5 @@
 """Property tests for the scatter-free counting core (sorted runs +
-waterfall table build) against numpy oracles — the TPU analog of the
+waterfall table build) against numpy oracles — the device analog of the
 reference's ground-truth hash tests (jf:unit_tests/test_hash_counter.cc)."""
 
 import jax.numpy as jnp

@@ -168,3 +168,43 @@ def test_lookup_pathological_skew_no_silent_zeros():
     got = np.asarray(lookup_kmers(tab, jnp.asarray(qk), jnp.ones(B, bool)))
     want = np.array([oracle[tuple(kk)] for kk in qk], dtype=np.uint32)
     assert (got == want).all()
+
+
+@pytest.mark.parametrize("W", [2, 3])
+@pytest.mark.parametrize("B", [256, 250])
+def test_lookup_dense_table_overflow_chains_vs_host(W, B):
+    """lookup_kmers on a dense table whose probe chains spill past home
+    buckets into the PAD rows == HostKmerTable.lookup_words, for present
+    keys, absent keys and invalid lanes."""
+    from jasper_tpu.ops.hashing import hash_words_np, home_of
+    from jasper_tpu.table.kmer_table import PAD_BUCKETS
+
+    rng = np.random.default_rng(42 + W + B)
+    k = 16 * W  # k only sets the word count here
+    tab = empty_table(k, 1024)
+    n_buckets = tab.shape[0] - PAD_BUCKETS
+    S = HostKmerTable(k, np.asarray(tab)).slots
+    pool = rng.integers(0, 2**32, size=(200_000, W), dtype=np.uint64).astype(
+        np.uint32)
+    pool_home = home_of(np, hash_words_np(pool), n_buckets)
+    # 3 buckets' worth of keys homed on the last bucket spill into the PAD
+    # rows; the rest fill the table to ~85%
+    last = pool[pool_home == n_buckets - 1][: 3 * S]
+    keys = np.concatenate([last, pool[pool_home < n_buckets - 1][:760]])
+    n_keys = len(keys)
+    counts = rng.integers(1, 1000, size=n_keys).astype(np.uint32)
+    tab, n_pending, _ = insert_kmers(tab, jnp.asarray(keys),
+                                     jnp.asarray(counts),
+                                     jnp.ones(n_keys, bool))
+    assert int(n_pending) == 0
+    host = HostKmerTable(k, np.asarray(tab))
+    assert host.tab[n_buckets + 1].any(), "no chain reaches the PAD rows"
+    q = np.concatenate(
+        [keys[rng.integers(0, n_keys, size=B // 2)],
+         rng.integers(0, 2**32, size=(B - B // 2, W),
+                      dtype=np.uint64).astype(np.uint32)])
+    valid = rng.random(B) < 0.9
+    got = np.asarray(lookup_kmers(tab, jnp.asarray(q), jnp.asarray(valid)))
+    want = np.where(valid, host.lookup_words(q), 0)
+    np.testing.assert_array_equal(got, want)
+    assert (got[: B // 2][valid[: B // 2]] > 0).all()

@@ -25,11 +25,9 @@ K = 37
 def main():
     import jax
 
-    cache = os.path.expanduser("~/.cache/jax_comp")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from jasper_tpu.utils.jaxenv import setup_compilation_cache
+
+    setup_compilation_cache()
 
     import jax.numpy as jnp
 
@@ -133,11 +131,9 @@ def main_runs():
     """Profile the sorted-run counting pipeline (the production path)."""
     import jax
 
-    cache = os.path.expanduser("~/.cache/jax_comp")
-    os.makedirs(cache, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from jasper_tpu.utils.jaxenv import setup_compilation_cache
+
+    setup_compilation_cache()
 
     import jax.numpy as jnp
 

@@ -2,8 +2,7 @@
 """End-to-end race: reference jasper.sh (real jellyfish 2.3.0 + real SWIG
 dna_jellyfish, built by tools/build_baseline.sh) vs jasper-tpu, on the same
 synthetic E. coli-scale input (BASELINE.json config 1 shape). Asserts
-byte-parity of the polished FASTA and fixes.csv, and prints wall-clock JSON
-for BASELINE.md "Measured".
+byte-parity of the polished FASTA and fixes.csv, and prints wall-clock JSON.
 
 The ONE shared component is the Bio.pairwise2 shim (tests/oracle/Bio):
 Biopython is not installed and cannot be fetched (zero egress), so both
@@ -170,7 +169,7 @@ def run_ours(asm, reads, k, passes, threads, batch, platform=None, run_id=""):
     """Fresh-process CLI run, exactly how a user invokes it. A second run
     is "warm": the persistent compilation cache (driver.py:386-388) holds
     every program, so only table/count work executes."""
-    wd = os.path.join(RACE, "tpu" + run_id)
+    wd = os.path.join(RACE, "ours" + run_id)
     os.makedirs(wd, exist_ok=True)
     env = dict(os.environ)
     if platform:
@@ -233,7 +232,7 @@ def main():
     # run N times each, fresh workdirs: run 1 is cold (reference: cold page
     # cache; ours: first-ever compiles unless the persistent cache is
     # already populated), later runs are warm
-    ref_times, tpu_times = [], []
+    ref_times, ours_times = [], []
     for i in range(ref_runs):
         rid = "" if ref_runs == 1 else f"_run{i + 1}"
         ref_wd, ref_s, ref_out = run_reference(
@@ -241,31 +240,31 @@ def main():
         ref_times.append(round(ref_s, 1))
     for i in range(runs):
         rid = "" if runs == 1 else f"_run{i + 1}"
-        tpu_wd, tpu_s, tpu_res = run_ours(
+        ours_wd, ours_s, ours_res = run_ours(
             asm, reads, k, passes, 1, batch, run_id=rid)
-        tpu_times.append(round(tpu_s, 1))
+        ours_times.append(round(ours_s, 1))
 
     def slurp(d, name):
         with open(os.path.join(d, name), "rb") as f:
             return f.read()
 
     pol_ref = slurp(ref_wd, "asm.fa.polished.fasta")
-    pol_tpu = slurp(tpu_wd, "asm.fa.polished.fasta")
+    pol_ours = slurp(ours_wd, "asm.fa.polished.fasta")
     fix_ref = slurp(ref_wd, "asm.fa.fixes.csv")
-    fix_tpu = slurp(tpu_wd, "asm.fa.fixes.csv")
+    fix_ours = slurp(ours_wd, "asm.fa.fixes.csv")
     import re
 
     qv_ref = re.findall(rb"Q value = ([0-9.]+|Inf)", ref_out.encode())
     result = {
         "genome_kb": genome_kb, "coverage": coverage, "k": k,
         "passes": passes, "ref_threads": threads,
-        "ref_secs": round(ref_s, 1), "tpu_secs": round(tpu_s, 1),
-        "ref_secs_runs": ref_times, "tpu_secs_runs": tpu_times,
-        "speedup": round(ref_s / tpu_s, 2),
-        "polished_identical": pol_ref == pol_tpu,
-        "fixes_identical": fix_ref == fix_tpu,
+        "ref_secs": round(ref_s, 1), "ours_secs": round(ours_s, 1),
+        "ref_secs_runs": ref_times, "ours_secs_runs": ours_times,
+        "speedup": round(ref_s / ours_s, 2),
+        "polished_identical": pol_ref == pol_ours,
+        "fixes_identical": fix_ref == fix_ours,
         "ref_qv": [q.decode() for q in qv_ref],
-        "tpu_qv": [tpu_res["q_before"], tpu_res["q_after"]],
+        "ours_qv": [ours_res["q_before"], ours_res["q_after"]],
     }
     print(json.dumps(result))
     if not (result["polished_identical"] and result["fixes_identical"]):

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Prime the persistent JAX compilation cache for jasper-tpu.
 
-The reference has no compile step; this framework's first-ever run pays a
-remote compile for every program shape (measured ~1335 s vs 254 s warm at
-20 Mbp @40x, BASELINE.md). This tool runs the REAL pipeline once on
+The reference has no compile step; this framework's first run pays a
+compile for every program shape. This tool runs the REAL pipeline once on
 synthetic data shaped like production (chunk_len 1<<23 counting programs,
 standard scan tiles, the sorted-run merge ladder, pull + histogram + build
 programs), so a deployment's first real run is warm.
@@ -18,9 +17,9 @@ Usage:
   python tools/warm_cache.py -k 25 [--genome-kb 4000] [--coverage 32]
                              [--passes 2]
 
-The persistent cache lives at $JASPER_TPU_COMPILE_CACHE
-(default ~/.cache/jasper_tpu_jax) and is written by every entry point via
-jasper_tpu.utils.jaxenv.setup_compilation_cache.
+The persistent cache lives at $JAX_COMPILATION_CACHE_DIR when that is
+set, and otherwise at .jax_cache/ in the checkout; every entry point sets
+it up through jasper_tpu.utils.jaxenv.setup_compilation_cache.
 """
 
 import argparse
@@ -68,8 +67,9 @@ def main():
         passes=args.passes, batch=25_000_000, workdir=workdir,
     )
     dt = time.time() - t0
-    cache = os.environ.get("JASPER_TPU_COMPILE_CACHE",
-                           os.path.expanduser("~/.cache/jasper_tpu_jax"))
+    from jasper_tpu.utils.jaxenv import setup_compilation_cache
+
+    cache = setup_compilation_cache()
     n = len(os.listdir(cache)) if os.path.isdir(cache) else 0
     print(f"[warm] done in {dt:.0f}s; cache {cache} now holds {n} programs",
           file=sys.stderr, flush=True)
